@@ -3,7 +3,7 @@
 // Native-substrate parity with the reference stack's DOLFIN/FFC layer
 // (SURVEY.md SS2 rows 9-10: the reference's only native code is its
 // third-party C++ assembly + factorization libraries). This library
-// owns the corresponding host-side hot paths of the TPU build:
+// owns the corresponding host-side hot paths of the device build:
 //
 //   * Taylor-Hood (P2/P1) element matrices (mass, stiffness,
 //     divergence) straight from vertex coordinates — the FFC-generated

@@ -1,6 +1,6 @@
-"""optconpy_tpu — TPU-native MPC / trajectory-optimization engine.
+"""optconpy_tpu — accelerator MPC / trajectory-optimization engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the workload of
+A from-scratch JAX/XLA re-design of the workload of
 `highlando/optconpy` (optimal control of FEM-discretized incompressible
 Navier-Stokes with quadratic tracking costs and Riccati-based feedback).
 

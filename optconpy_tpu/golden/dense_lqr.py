@@ -2,7 +2,7 @@
 
 The reference publishes no numbers and its tree was unavailable at
 survey time (SURVEY.md SS0, SS6); per BASELINE.md the acceptance
-contract is MATHEMATICAL: the TPU engine must reproduce this dense
+contract is MATHEMATICAL: the device engine must reproduce this dense
 f64 implementation of the identical discretization to <= 1e-4 relative
 error. Everything here is deliberately naive, dense, and serial.
 

@@ -4,7 +4,7 @@ The reference's solve_nse loop (SURVEY.md SS3.4): factor the implicit
 system once, then per step apply feedback (tall-skinny matvecs) and one
 cached triangular solve. Here the linear (LTI / Oseen-linearized)
 rollout is a lax.scan whose body is two dense triangular solves on the
-MXU; scenarios batch via vmap over the initial state / targets, which
+device; scenarios batch via vmap over the initial state / targets, which
 is what "closed-loop MPC solves/s/chip" measures (BASELINE.md).
 """
 from __future__ import annotations

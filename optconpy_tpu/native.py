@@ -1,7 +1,9 @@
 """ctypes loader for the C++ native kernels (native/optconpy_native.cpp).
 
-The shared library is built lazily with `make -C native` on first use;
-every entry point has a numpy fallback (fem/taylor_hood.py), so the
+`make -C native` runs on first use in each process; its rule rebuilds
+the shared library only when optconpy_native.cpp is newer, so the
+library always matches the committed source. Every entry point has a
+numpy fallback (fem/taylor_hood.py), so the
 framework works without a compiler — the native path is the production
 host substrate (element assembly, convection evaluation, ELL packing),
 mirroring the reference's DOLFIN/FFC C++ layer (SURVEY.md SS2 row 9).
@@ -31,12 +33,12 @@ def load(rebuild: bool = False):
         return _lib
     _tried = True
     try:
-        if rebuild or not _LIB_PATH.exists():
-            subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-            )
+        subprocess.run(
+            ["make", "-C", str(_NATIVE_DIR)]
+            + (["-B"] if rebuild else []),
+            check=True,
+            capture_output=True,
+        )
         lib = ctypes.CDLL(str(_LIB_PATH))
     except (OSError, subprocess.SubprocessError):
         return None

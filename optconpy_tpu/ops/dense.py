@@ -1,18 +1,18 @@
-"""Dense factorization caches — the TPU stand-in for cached SuperLU.
+"""Dense factorization caches — the device stand-in for cached SuperLU.
 
 The reference's single hottest pattern is "factor a sparse matrix once
 with splu, reuse the triangular solves thousands of times" (SURVEY.md
-SS2 row 10, SS3.3-3.4). TPUs have no sparse LU; the replacement here:
+SS2 row 10, SS3.3-3.4). The replacement here:
 
-  * FACTORIZE ON THE HOST (LAPACK f64 via scipy): XLA's TPU LU is
-    ~20x slower than 2-core LAPACK (measured 21.9s vs 1.1s at n=5037)
-    because partial pivoting serializes; factors are cast to the device
-    dtype and shipped once.
+  * FACTORIZE ON THE HOST (LAPACK f64 via scipy); factors are cast to
+    the device dtype and shipped once. Whether a device LU (cuSOLVER
+    through jnp.linalg) should replace this is not measured yet,
+    ROADMAP design item 2.
   * SOLVE ON THE DEVICE: batched triangular solves (LUSolver), or one
     GEMM against a host-computed explicit inverse (DenseInverse) —
-    the MXU runs GEMM at ~35 TFLOP/s f32 vs a fraction of that for
-    blocked triangular solves, so the inverse path wins whenever the
-    matrix is applied many times (rollout steps, ADI sweeps).
+    a GEMM runs far closer to the card's peak than blocked triangular
+    solves, so the inverse path wins whenever the matrix is applied
+    many times (rollout steps, ADI sweeps).
 
 For larger n, solvers/krylov.py provides the matrix-free path behind
 the same `apply` contract.
@@ -78,8 +78,7 @@ class LUSolver:
 
     @staticmethod
     def factor_device(a: jax.Array) -> "LUSolver":
-        """On-device factorization — ONLY for traced/inside-jit use;
-        ~20x slower than host LAPACK on TPU."""
+        """On-device factorization, for traced/inside-jit use."""
         lu, piv = jax.scipy.linalg.lu_factor(a)
         return LUSolver(lu, piv)
 
@@ -124,7 +123,7 @@ class CholeskySolver:
 )
 @dataclass(frozen=True)
 class DenseInverse:
-    """Explicit inverse applied as one GEMM — the MXU-optimal reuse
+    """Explicit inverse applied as one GEMM — the GEMM-bound reuse
     path (see module docstring). Built on the host in f64, so the
     apply error is cond(A) * eps(device dtype) like an LU solve."""
 

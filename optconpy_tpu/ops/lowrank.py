@@ -2,7 +2,7 @@
 
 The reference accumulates ADI factors Z = [Z, Z_new] and compresses by
 thin QR + truncated SVD (SURVEY.md SS3.3). Ranks are dynamic there; on
-TPU every factor lives in a STATIC (n, r_max) buffer whose trailing
+the device every factor lives in a STATIC (n, r_max) buffer whose trailing
 columns are exactly zero when unused (SURVEY.md SS7 hard part 5). All
 routines here preserve that invariant and are jit/scan/vmap-safe.
 """
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 def tsqr_cholqr2(z: jax.Array) -> tuple[jax.Array, jax.Array]:
     """CholeskyQR2 for tall-skinny Z (n, r): two Gram+Cholesky passes.
 
-    MXU-friendly (two r*r Grams + triangular solves) and accurate to
+    GEMM-bound (two r*r Grams + triangular solves) and accurate to
     ~machine eps for cond(Z) < 1/sqrt(eps). Zero columns are handled by
     regularizing the Gram diagonal; the corresponding R rows stay ~0.
     """

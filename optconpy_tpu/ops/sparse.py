@@ -1,14 +1,13 @@
-"""Static-sparsity sparse operators for TPU.
+"""Static-sparsity sparse operators on the device.
 
 The reference keeps all FEM operators as scipy.sparse CSR and solves
-through SuperLU (SURVEY.md SS2 rows 5, 10; SS3.1 hot kernels). On TPU we
-instead freeze the sparsity offline (FEM layer, SURVEY.md SS3.5 caching
+through SuperLU (SURVEY.md SS2 rows 5, 10; SS3.1 hot kernels). Here the
+sparsity is frozen offline (FEM layer, SURVEY.md SS3.5 caching
 boundary) into a padded-ELL layout: every row stores exactly `k` (value,
 col) pairs, zero-padded. On-device SpMV/SpMM is then a static gather +
-dense contraction — no dynamic shapes, vmap/scan-safe, and the batched
-SpMM variant maps onto the VPU/MXU. A Pallas kernel (ops/pallas_spmm.py)
-implements the same contract for the hot path; this module is the
-correctness oracle and the fallback.
+dense contraction — no dynamic shapes, vmap/scan-safe. The host-side
+orderings below (RCM, window-sorted rows) narrow each operator's band
+for the matrix-free solvers' block-Jacobi preconditioner.
 """
 from __future__ import annotations
 
@@ -22,6 +21,44 @@ import numpy as np
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def rcm_permutation(*mats) -> np.ndarray:
+    """Reverse Cuthill-McKee ordering of the union pattern of `mats`.
+
+    Host-side setup step: returns perm such that mat[perm][:, perm] is
+    banded. Apply to the velocity dof set once, at the FEM -> device
+    boundary (SURVEY.md SS3.5).
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+
+    patt = None
+    for m in mats:
+        m = sp.csr_matrix(m)
+        m = abs(m) + abs(m).T
+        patt = m if patt is None else patt + m
+    return np.asarray(
+        csg.reverse_cuthill_mckee(patt.tocsr(), symmetric_mode=True)
+    )
+
+
+def sort_rows_by_window(csr) -> np.ndarray:
+    """Row order sorting rows by their first nonzero column.
+
+    For rectangular operators (J: pressure rows x velocity cols) whose
+    column space was RCM-ordered: sorting rows geometrically narrows the
+    band the same way RCM does for square operators.
+    """
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix(csr)
+    first = np.full(m.shape[0], m.shape[1], dtype=np.int64)
+    for i in range(m.shape[0]):
+        lo, hi = m.indptr[i], m.indptr[i + 1]
+        if hi > lo:
+            first[i] = m.indices[lo:hi].min()
+    return np.argsort(first, kind="stable")
 
 
 @partial(
@@ -61,8 +98,8 @@ class ELL:
         Wide X (dense right-hand blocks, e.g. the Newton-Schulz
         inverse builds applying the operator to (n, n) columns) is
         column-chunked under lax.map: the einsum lowering materializes
-        the (m, k, b) gather, which at b ~ n is multi-GB of HBM
-        transient — chunking caps it at ~128 MB with identical math.
+        the (m, k, b) gather, which at b ~ n is multi-GB of device
+        memory — chunking caps it at ~128 MB with identical math.
         """
         m, k = self.data.shape
         b = x.shape[1]
@@ -102,8 +139,8 @@ class ELL:
 def ell_from_scipy(a, pad_to: int | None = None, dtype=None) -> ELL:
     """Convert a scipy.sparse matrix to padded ELL (host-side, setup time).
 
-    pad_to: round the per-row nnz up to a multiple (e.g. 8 for VPU
-    sublane alignment); default keeps the max row nnz.
+    pad_to: round the per-row nnz up to a multiple (e.g. 8); default
+    keeps the max row nnz.
     """
     import scipy.sparse as sp
 
@@ -139,7 +176,7 @@ def ell_to_scipy(a: ELL):
     mat.sum_duplicates()
     mat = mat.tocsr()
     # Drop the ELL padding slots (explicit zeros at column 0): leaving
-    # them makes every row "touch" column 0, which inflates the
-    # windowed-SpMM column windows to full matrix width downstream.
+    # them makes every row "touch" column 0, which widens the RCM band
+    # and the window-sorted row order downstream.
     mat.eliminate_zeros()
     return mat

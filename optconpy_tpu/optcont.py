@@ -3,8 +3,8 @@
 Parity with the reference's optcont_main.optcon_nse (SURVEY.md SS2 row
 1, SS3.1): assemble -> steady state -> B/C operators -> target y* ->
 backward DRE sweep (gain factors per timestep) -> feedforward sweep ->
-forward closed-loop sweep -> outputs. Differences are the TPU-first
-redesign: the backward/forward sweeps are jitted lax.scans on device,
+forward closed-loop sweep -> outputs. Differences are the device-first
+redesign: the backward/forward sweeps are jitted programs on device,
 gains are checkpointed as one npz artifact keyed by the config hash
 (utils/cache.py), and the forward sweep can roll out a whole scenario
 batch at once (the reference is strictly one trajectory per run).
@@ -172,9 +172,8 @@ def optcon_nse(
                 )
             elif dre_solver == "inverse_ns":
                 # Dense one-GEMM-per-solve tier with the inverse stack
-                # built ON DEVICE by Newton-Schulz ladders — the r5
-                # config-3 headline path (no host splu, no transfer;
-                # CONFIG3_r05: 127 warm ADI iters/s at n=15,316).
+                # built ON DEVICE by Newton-Schulz ladders (no host
+                # splu, no bulk transfer).
                 from .riccati import build_dre_cache_dae_ns
 
                 cache, _ns_info = build_dre_cache_dae_ns(
@@ -238,7 +237,7 @@ def optcon_nse(
 
     # --- Forward closed-loop sweep (nonlinear NSE or linear LTI). ---
     if constrained:
-        from .fem.device_conv import ConvKernel, FusedConvKernel
+        from .fem.device_conv import ConvKernel
         from .mpc import (
             batched_nse_closed_loop,
             build_nse_fused,
@@ -247,14 +246,7 @@ def optcon_nse(
         )
 
         step_solver = cfg.solver.step_solver
-        # The fused Pallas convection kernel rides the f32 TPU fast
-        # paths; the plain tensor kernel covers f64 and CPU.
-        conv_cls = (
-            FusedConvKernel
-            if step_solver in ("fused", "matfree") and dtype == jnp.float32
-            else ConvKernel
-        )
-        conv = conv_cls.build(np_ops["full"], cond, dtype=dtype)
+        conv = ConvKernel.build(np_ops["full"], cond, dtype=dtype)
         if step_solver == "fused":
             stepper = build_nse_fused(
                 np_ops, cond, dt, dtype=dtype,

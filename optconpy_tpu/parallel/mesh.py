@@ -1,9 +1,9 @@
 """Device mesh + sharding layout (SURVEY.md SS5.8, SS7 layer 6).
 
 The reference is single-process CPU with no communication layer
-(SURVEY.md SS2 parallelism census); the TPU-native distribution model
-is GSPMD: a ('scenario',) — optionally ('scenario', 'model') — device
-mesh, NamedSharding of the scenario batch over ICI/DCN, and XLA
+(SURVEY.md SS2 parallelism census); the distribution model here is
+GSPMD: a ('scenario',) — optionally ('scenario', 'model') — device
+mesh, NamedSharding of the scenario batch over the cards, and XLA
 collectives inside shard_map'ed solver steps. No custom transport.
 """
 from __future__ import annotations
@@ -36,7 +36,7 @@ def replicate(mesh: Mesh, tree):
 
 
 def init_multihost(coordinator: str | None = None):
-    """Multi-host initialization (DCN): thin jax.distributed wrapper."""
+    """Multi-host initialization: thin jax.distributed wrapper."""
     if jax.process_count() > 1:
         return  # already initialized by the launcher
     if coordinator is not None:

@@ -1,11 +1,11 @@
 """Sharded batched MPC rollouts — shard_map over the scenario axis.
 
-Config 5 (BASELINE.md): thousands of scenario rollouts sharded across a
-multi-host slice. Gains/operators are replicated (they are shared by
-every scenario of one linearization); only the scenario batch is
-sharded. Aggregate statistics (mean tracking cost, worst-case output
-error) are block-reduced with jax.lax.psum over ICI/DCN — the only
-collectives this workload needs (SURVEY.md SS5.8).
+Config 5 (BASELINE.md): thousands of scenario rollouts sharded across
+the cards. Gains/operators are replicated (they are shared by every
+scenario of one linearization); only the scenario batch is sharded.
+Aggregate statistics (mean tracking cost, worst-case output error) are
+block-reduced with jax.lax.psum — the only collectives this workload
+needs (SURVEY.md SS5.8).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def sharded_closed_loop(
                 sys, cache, ks, ws, v0, alpha, dt
             )
         )(v0_local)
-        # Block reductions ride ICI/DCN via psum.
+        # Block reductions via psum.
         local_cost = jnp.sum(ys**2) * dt + alpha * jnp.sum(us**2) * dt
         total_cost = jax.lax.psum(local_cost, axis)
         n_total = jax.lax.psum(v0_local.shape[0], axis)

@@ -1,8 +1,8 @@
 """ADI shift selection — offline, on CPU (SURVEY.md SS7 hard part 3).
 
 The reference precomputes Penzl/Wachspress-type shifts on the host
-(SURVEY.md SS3.3); eigensolvers don't belong on the TPU either, so we
-keep shift selection a setup-time numpy step. For the symmetric
+(SURVEY.md SS3.3); this repo keeps shift selection a setup-time numpy
+step as well. For the symmetric
 (heat/Stokes) pencils the spectral interval is computed exactly with
 ARPACK/dense eigs and Wachspress-optimal real log-spaced shifts are
 used; DRE time-shifted pencils A - M/(2 dt) reuse the same interval

@@ -1,19 +1,19 @@
 """Matrix-free shifted saddle-point solves — the genuinely-large-n path.
 
 The reference factorizes every shifted saddle matrix with SuperLU
-(SURVEY.md SS2 row 10, SS3.3 "dominates runtime"); the dense TPU
-stand-ins (solvers/saddle.py, solvers/krylov.py reference LUs) cap out
-near n+np ~ 17k because an (n+np)^2 factor is ~1.2 GB and the host
-getrf at that size runs tens of minutes on the deploy VMs. This module
+(SURVEY.md SS2 row 10, SS3.3 "dominates runtime"); the dense device
+stand-ins (solvers/saddle.py, solvers/krylov.py reference LUs) need an
+(n+np)^2 object per shift, which grows past one card's memory at large
+n. This module
 removes the dense factor entirely (SURVEY.md SS7 layer 3): every solve
 is restarted FGMRES whose large-n primitives are
 
-  * SpMM against the frozen FEM operators (Pallas windowed kernels on
-    TPU, einsum-ELL fallback — ops/pallas_spmm.py), after a
-    bandwidth-reducing RCM reordering of the velocity dofs,
+  * SpMM against the frozen FEM operators (padded-ELL einsum,
+    ops/sparse.py), after a bandwidth-reducing RCM reordering of the
+    velocity dofs,
   * a block-Jacobi velocity preconditioner: dense inverses of the
     RCM-ordered diagonal blocks of F_i = A^T + s_i M, applied as ONE
-    batched (nb, B, B) @ (nb, B, q) MXU contraction per iteration
+    batched (nb, B, B) @ (nb, B, q) contraction per iteration
     (O(n B) memory per shift — 512 B/row vs n B/row for a dense factor),
   * a Cahouet-Chabard-style pressure Schur preconditioner: the Schur
     complement of [[F_i, J^T], [J, 0]] is S ~ -(1/s_i) L_p with
@@ -41,7 +41,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.pallas_spmm import spmm
+from ..ops.sparse import ell_from_scipy
 from .krylov import fgmres
 
 
@@ -49,20 +49,9 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _pack_operator(
-    a_sp, kind: str, dtype, w_cap: int = 4096,
-    batch_hint: int | None = None,
-):
-    """Pack a scipy matrix for on-device SpMM — see
-    ops.pallas_spmm.pack_for_backend for the MEASURED per-operator
-    dispatch table (SPMM_r04.json); batch_hint is the expected SpMM
-    column width (Krylov W width for the DRE cache, scenario batch for
-    the transient stepper)."""
-    from ..ops.pallas_spmm import pack_for_backend
-
-    return pack_for_backend(
-        a_sp, dtype, kind=kind, w_cap=w_cap, batch_hint=batch_hint
-    )
+def _pack_operator(a_sp, dtype):
+    """Pack a scipy matrix as padded ELL for on-device SpMM."""
+    return ell_from_scipy(a_sp, pad_to=8, dtype=np.dtype(dtype))
 
 
 def _block_jacobi_inverses(f_sp, block: int, n_pad: int) -> np.ndarray:
@@ -102,7 +91,7 @@ class SaddleMatfreeCache:
     order (the DAESystem convention).
     """
 
-    at_pack: object  # WindowedDense or ELL, (n, n), RCM-ordered
+    at_pack: object  # ELL, (n, n), RCM-ordered
     m_pack: object  # (n, n)
     j_pack: object  # (n_p, n)
     jt_pack: object  # (n, n_p)
@@ -133,8 +122,6 @@ class SaddleMatfreeCache:
         m_krylov: int = 30,
         max_cycles: int = 8,
         tol: float = 1e-6,
-        kind: str = "auto",
-        batch_hint: int | None = None,
     ) -> "SaddleMatfreeCache":
         """Host-side setup (scipy, f64) — O(nnz + n B^2 / B + np^3).
 
@@ -149,7 +136,7 @@ class SaddleMatfreeCache:
         """
         import scipy.sparse as sp
 
-        from ..ops.pallas_spmm import rcm_permutation, sort_rows_by_window
+        from ..ops.sparse import rcm_permutation, sort_rows_by_window
 
         at = sp.csr_matrix(at_sp)
         m = sp.csr_matrix(m_sp)
@@ -180,12 +167,10 @@ class SaddleMatfreeCache:
         lp_inv = np.linalg.inv(lp)
 
         return SaddleMatfreeCache(
-            at_pack=_pack_operator(at_r, kind, dtype, batch_hint=batch_hint),
-            m_pack=_pack_operator(m_r, kind, dtype, batch_hint=batch_hint),
-            j_pack=_pack_operator(j_r, kind, dtype, batch_hint=batch_hint),
-            jt_pack=_pack_operator(
-                j_r.T.tocsr(), kind, dtype, batch_hint=batch_hint
-            ),
+            at_pack=_pack_operator(at_r, dtype),
+            m_pack=_pack_operator(m_r, dtype),
+            j_pack=_pack_operator(j_r, dtype),
+            jt_pack=_pack_operator(j_r.T.tocsr(), dtype),
             bj_inv=jnp.asarray(bj, dtype),
             lp_inv=jnp.asarray(lp_inv, dtype),
             shifts=jnp.asarray(shifts_np, dtype),
@@ -228,17 +213,10 @@ class SaddleMatfreeCache:
         import numpy as np
         import scipy.sparse as sp
 
-        from ..ops.pallas_spmm import WindowedDense
-
         perm = np.asarray(self.perm)
         at_r = sp.csr_matrix(at_sp_new)[perm][:, perm].tocsr()
         dtype = self.shifts.dtype
-        kind = (
-            "windowed"
-            if isinstance(self.at_pack, WindowedDense)
-            else "ell"
-        )
-        new = {"at_pack": _pack_operator(at_r, kind, dtype)}
+        new = {"at_pack": _pack_operator(at_r, dtype)}
         if m_sp is not None:
             m_r = (
                 sp.csr_matrix(m_sp)[perm][:, perm]
@@ -282,17 +260,17 @@ class SaddleMatfreeCache:
         def kop(xb):
             v, p = xb[:n], xb[n:]
             kv = (
-                spmm(self.at_pack, v)
-                + s_i * spmm(self.m_pack, v)
-                + spmm(self.jt_pack, p)
+                self.at_pack @ v
+                + s_i * (self.m_pack @ v)
+                + self.jt_pack @ p
             )
-            return jnp.concatenate([kv, spmm(self.j_pack, v)], axis=0)
+            return jnp.concatenate([kv, self.j_pack @ v], axis=0)
 
         def prec(xb):
             rv_, rp_ = xb[:n], xb[n:]
             # Shat = -(1/s) L_p  =>  Shat^{-1} = -s L_p^{-1} (signed!)
             p = -sc_i * (self.lp_inv @ rp_)
-            v = self._bj_apply(bj_i, rv_ - spmm(self.jt_pack, p))
+            v = self._bj_apply(bj_i, rv_ - self.jt_pack @ p)
             return jnp.concatenate([v, p], axis=0)
 
         rhs = jnp.concatenate([rv, rp], axis=0)

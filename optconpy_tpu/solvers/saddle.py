@@ -2,10 +2,10 @@
 
 The reference funnels every constrained solve through
 solve_sadpnt_smw on a cached SuperLU factorization (SURVEY.md SS2 row
-5, SS3.2-3.4). TPU-native equivalents here:
+5, SS3.2-3.4). Device equivalents here:
 
   * SaddleLU / SaddleShiftedLUCache — ONE batched dense LU of the
-    (n+np) saddle matrix (per shift), MXU-built, reused for every
+    (n+np) saddle matrix (per shift), reused for every
     solve; feedback updates via SMW on padded low-rank factors. The
     velocity-block solve applies the discrete Leray projection
     implicitly (iterates stay in ker J) — the app_prj_via_sadpnt
@@ -59,7 +59,7 @@ class SaddleLU:
     @staticmethod
     def build(f_dense: jax.Array, j_dense: jax.Array) -> "SaddleLU":
         """Host-LAPACK factorization of the assembled saddle matrix
-        (setup-time; XLA's TPU LU is ~20x slower — ops/dense.py)."""
+        (setup-time; ops/dense.py)."""
         import numpy as np
 
         from ..ops.dense import host_lu_factor
@@ -191,7 +191,7 @@ class SaddleShiftedLUCache:
 class SaddleInverse:
     """Explicit saddle inverse applied as ONE GEMM per solve.
 
-    The MXU runs GEMM far faster than blocked triangular solves, so for
+    A GEMM runs far faster than blocked triangular solves, so for
     matrices applied thousands of times (the IMEX rollout step, ADI
     sweeps) the explicit inverse wins despite the O(n^2) extra setup;
     it is computed on the host in f64 and cast, so accuracy matches an
@@ -247,7 +247,7 @@ class SaddleInverse:
 class SaddleShiftedInverseCache:
     """Host-built explicit inverses of the shifted saddle systems,
     applied as one GEMM per solve (velocity block returned) — the
-    MXU-optimal ADI solve path; same contract as SaddleShiftedLUCache."""
+    GEMM-bound ADI solve path; same contract as SaddleShiftedLUCache."""
 
     inv: jax.Array  # (J, n+np, n+np) or vv-block-only (J, n, n)
     n: int

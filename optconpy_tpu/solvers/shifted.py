@@ -2,8 +2,8 @@
 
 The reference caches one SuperLU factorization per ADI shift and reuses
 it across the whole Newton/ADI sweep (SURVEY.md SS3.3 "dominates
-runtime"). The TPU-native equivalent for moderate n: ONE batched dense
-LU over the shift axis, computed on the MXU, then O(n^2) batched
+runtime"). The device equivalent for moderate n: ONE batched dense
+LU over the shift axis, then O(n^2) batched
 triangular solves per ADI step. Feedback updates F = A - B K never
 refactor: they go through Sherman-Morrison-Woodbury on the cached
 factors, exactly mirroring the reference's solve_sadpnt_smw design
@@ -39,7 +39,7 @@ class ShiftedLUCache:
     @staticmethod
     def build(at_dense: jax.Array, m_dense: jax.Array, shifts: jax.Array):
         """Factor A^T + sigma_i M for every shift — host LAPACK
-        (setup-time; XLA's TPU LU is ~20x slower, ops/dense.py)."""
+        (setup-time; ops/dense.py)."""
         import numpy as np
 
         from ..ops.dense import host_lu_factor
@@ -83,8 +83,8 @@ class ShiftedLUCache:
 @dataclass(frozen=True)
 class ShiftedInverseCache:
     """Host-built explicit inverses of (A^T + sigma_i M), applied as one
-    GEMM per solve — ~10x the triangular-solve throughput on the MXU
-    (ops/dense.py rationale). Same solve/solve_smw contract."""
+    GEMM per solve (ops/dense.py rationale). Same solve/solve_smw
+    contract."""
 
     inv: jax.Array  # (J, n, n)
 

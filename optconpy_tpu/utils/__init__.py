@@ -11,7 +11,7 @@ from .config import (
 )
 from .metrics import MetricsLogger, device_timeit
 from .profiling import SectionTimer, trace
-from .runtime import effective_platform, setup
+from .runtime import setup
 
 __all__ = [
     "CostConfig",

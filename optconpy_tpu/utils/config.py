@@ -1,4 +1,4 @@
-"""Frozen config tree — the TPU build's flag system (SURVEY.md SS5.6).
+"""Frozen config tree — the engine's flag system (SURVEY.md SS5.6).
 
 The reference passes plain keyword arguments through optcon_nse plus
 per-problem module dicts; here every run is described by one frozen,
@@ -57,7 +57,7 @@ class SolverConfig:
     #   'inverse' host-built explicit inverse, one GEMM per solve;
     #   'fused'   whole linear step pre-contracted into two GEMMs
     #             (mpc/nse_rollout.py NSEFusedCache — the bench path);
-    #   'matfree' block-Jacobi + pressure-Schur FGMRES over Pallas
+    #   'matfree' block-Jacobi + pressure-Schur FGMRES over ELL
     #             SpMM, no O((n+np)^2) object (config-3+ sizes).
     step_solver: str = "lu"
     # Riccati (DRE) cache tier: 'auto' follows step_solver ('matfree'
@@ -69,13 +69,13 @@ class SolverConfig:
     fgmres_cycles: int = 8
     feedback: str = "implicit"  # SMW-implicit gains: robust for cheap control
     matmul_precision: str = "highest"
-    # Rollout-only matmul precision override (split precision policy,
-    # PRECISION_r04.json): the DRE/gain path keeps matmul_precision;
-    # the closed-loop ROLLOUT may run a cheaper MXU tier. Measured on
-    # the config-4 cylinder: 'high' (3-pass) holds the 1e-4 closed-loop
-    # output bound vs f64 (9.6e-5 over 64 steps) at ~1.35x throughput;
-    # 'default' (1-pass bf16) fails it (9.9e-4). None = follow
-    # matmul_precision (the conservative default).
+    # Rollout-only matmul precision override (split precision policy):
+    # the DRE/gain path keeps matmul_precision; the closed-loop ROLLOUT
+    # may run a cheaper tier ('high' is TF32 on the GPU; see
+    # utils/runtime.py for the menu) where its output stays within 1e-4
+    # of the f64 recurrence — chip_smoke.py's rollout phase measures
+    # that per tier. None = follow matmul_precision (the conservative
+    # default).
     rollout_matmul_precision: str | None = None
 
 

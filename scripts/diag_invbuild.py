@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Diagnose the DRE inverse-cache cold start (VERDICT r3 item 1).
+"""Diagnose the DRE inverse-cache cold start.
 
-BENCH_r03 recorded 1598 s to build six explicit shifted-saddle
-inverses via splu(big).solve(dense eye) while the factorizations
-alone cost 0.2 s. This script times, on the deploy box, every
-candidate build strategy for ONE representative shift and reports
+Building explicit shifted-saddle inverses via splu(big).solve(dense
+eye) can cost far more than the factorizations themselves. This script
+times every candidate build strategy for ONE representative shift and
+reports
 per-shift + extrapolated 6-shift totals plus accuracy vs f64:
 
   A. splu factor + dense-RHS solve (current path), 256-col panel
@@ -13,7 +13,7 @@ per-shift + extrapolated 6-shift totals plus accuracy vs f64:
   C. on-device f32: scatter the sparse pencil to dense, batched
      jnp.linalg.inv, slice the vv block (transfer = a few MB of COO).
 
-Writes DIAG_INV_r04.json.
+Prints its result as one JSON line.
 """
 from __future__ import annotations
 
@@ -184,9 +184,6 @@ def main():
     out["f32_cast_floor_rel"] = float(cast_rel)
     log(f"f32 cast floor: {cast_rel:.2e}")
 
-    with open("DIAG_INV_r04.json", "w") as f:
-        json.dump(out, f, indent=1)
-    log("wrote DIAG_INV_r04.json")
 
 
 if __name__ == "__main__":

@@ -8,9 +8,9 @@ cores, so an "efficiency" number is only load-bearing up to 2 devices
 points are recorded as PARTITION-CORRECTNESS booleans (per-bucket
 scenario counts and psum statistics match the unsharded reference at
 every mesh size), which is what a core-oversubscribed mesh can
-actually certify. Writes SCALING_r04.json. Run:
+actually certify. Prints its result as one JSON line. Run:
 
-    PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python scripts/sweep_scaling_cpu.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/sweep_scaling_cpu.py
 """
 from __future__ import annotations
 
@@ -144,8 +144,6 @@ def main():
             "VERDICT r3 weak 5"
         ),
     }
-    with open("/root/repo/SCALING_r04.json", "w") as f:
-        json.dump(out, f, indent=1)
     print(json.dumps(out))
 
 

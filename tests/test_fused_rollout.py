@@ -1,4 +1,4 @@
-"""Fused MXU rollout path vs the reference step decomposition.
+"""Fused GEMM rollout path vs the reference step decomposition.
 
 The fused step (mpc/nse_rollout.py NSEFusedCache) re-associates the
 IMEX step — one precontracted (n, n) GEMM + batch-last convection —

@@ -1,6 +1,6 @@
 """Acceptance config 1 (BASELINE.md): 1D heat LQR, 64 dofs, horizon 50.
 
-End-to-end oracle chain per SURVEY.md SS4/SS6: every TPU-engine stage is
+End-to-end oracle chain per SURVEY.md SS4/SS6: every device-engine stage is
 checked against the dense f64 scipy golden of the IDENTICAL scheme to
 <= 1e-4 relative error (the north-star fidelity bound).
 """

@@ -43,7 +43,7 @@ def shifted(cavity):
     mf = SaddleMatfreeCache.build(
         np_ops["A"].T.tocsr(), np_ops["M"], np_ops["J"], sig,
         dtype=jnp.float64, block=64, m_krylov=30, max_cycles=12,
-        tol=1e-11, kind="ell",
+        tol=1e-11,
     )
     m_d, a_d, j_d = sys.dense()
     lu = SaddleShiftedLUCache.build(a_d.T, m_d, j_d, jnp.asarray(sig))
@@ -128,7 +128,7 @@ def test_matfree_dre_sweep_matches_lu(cavity):
     lu_cache = build_dre_cache_dae(sys, dt, sig)
     mf_cache = build_dre_cache_dae_matfree(
         sys, dt, sig, dtype=jnp.float64, block=64,
-        max_cycles=12, tol=1e-11, kind="ell",
+        max_cycles=12, tol=1e-11,
     )
     kw = dict(
         alpha=1e-2, dt=dt, nts=nts,
@@ -157,7 +157,7 @@ def test_matfree_rollout_matches_lu(feedback):
     lu_cache = build_nse_stepper(np_ops, cond, dt, dtype=jnp.float64)
     mf_cache = build_nse_stepper_matfree(
         np_ops, cond, dt, dtype=jnp.float64, block=512,
-        max_cycles=15, tol=1e-12, kind="ell",
+        max_cycles=15, tol=1e-12,
     )
 
     rng = np.random.default_rng(0)
@@ -199,7 +199,7 @@ def test_refresh_operator_matches_full_build(cavity):
     base = SaddleMatfreeCache.build(
         np_ops["A"].T.tocsr(), np_ops["M"], np_ops["J"], sig,
         dtype=jnp.float64, block=64, m_krylov=30, max_cycles=12,
-        tol=1e-11, kind="ell",
+        tol=1e-11,
     )
     # Perturbed operator: a convection-sized asymmetric shift of A^T.
     import scipy.sparse as sp
@@ -214,7 +214,7 @@ def test_refresh_operator_matches_full_build(cavity):
     full = SaddleMatfreeCache.build(
         at_new, np_ops["M"], np_ops["J"], sig,
         dtype=jnp.float64, block=64, m_krylov=30, max_cycles=12,
-        tol=1e-11, kind="ell",
+        tol=1e-11,
     )
     rng = np.random.default_rng(1)
     rhs = jnp.asarray(rng.standard_normal((sys.n, 3)))
@@ -248,7 +248,7 @@ def test_sharded_matfree_rollout_matches_unsharded(cavity):
     dt, alpha, nts, s_batch = 0.02, 1e-4, 4, 8
     cache = build_nse_stepper_matfree(
         np_ops, cond, dt, dtype=jnp.float64, block=64,
-        max_cycles=12, tol=1e-11, kind="ell",
+        max_cycles=12, tol=1e-11,
     )
     n, m = sys.b.shape
     rng = np.random.default_rng(2)

@@ -268,7 +268,7 @@ def test_receding_matfree_matches_lu(cavity):
     base = dict(horizon=6, apply=3, dt=0.02, alpha=1e-6, r_max=24)
     cfg_lu = RHConfig(**base, solver="lu")
     cfg_mf = RHConfig(
-        **base, solver="matfree", kind="ell",
+        **base, solver="matfree",
         fgmres_tol=1e-11, fgmres_cycles=12,
     )
     sig, sigma_seq, idx_seq = dre_shift_schedule_dae(
@@ -325,7 +325,7 @@ def test_dense_ns_matches_matfree_receding():
     for solver in ("matfree", "dense_ns"):
         cfg = RHConfig(
             horizon=3, apply=3, dt=dt, alpha=alpha, n_newton=1,
-            r_max=8, solver=solver, kind="ell", warm_n_adi=4,
+            r_max=8, solver=solver, warm_n_adi=4,
             fgmres_tol=1e-10, fgmres_cycles=12,
         )
         outs[solver] = receding_horizon_mpc(
